@@ -1,26 +1,18 @@
-"""rxmd-tpu: TPU-native reactive molecular dynamics (ReaxFF/QEq/PQEq)."""
+"""rxmd-tpu: reactive molecular dynamics (ReaxFF/QEq/PQEq) in JAX."""
+import os as _os
+
 import jax as _jax
 
 # MD coordinate transforms (frac <-> real) and the dense QEq matvec are
-# jnp matmuls; the TPU default bf16 matmul precision would round positions
-# to ~0.01 A and break CG convergence.  All heavy compute here is
-# elementwise/gather (unaffected), so forcing full precision costs nothing.
+# jnp matmuls.  On a GPU an f32 matmul may otherwise run in TF32, which
+# keeps about 3 significant digits: positions would round to ~0.01 A and
+# the QEq CG would stop converging.  The heavy compute here is elementwise
+# work and gathers, which the setting does not touch.
 _jax.config.update("jax_default_matmul_precision", "highest")
-
-# Persistent compilation cache: the MD step is one large XLA program whose
-# first compile takes minutes at production sizes; cache it across runs
-# (CLI, bench, tests all share).  Mirrors the reference's ahead-of-time
-# build model — compile once, run many.
-import os as _os
-
-_cache = _os.environ.get(
-    "RXMD_TPU_CACHE",
-    _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
-                  _os.pardir, ".jax_cache"))
 
 
 def _arch_tag():
-    """CPU-microarchitecture tag for the cache path: XLA:CPU AOT
+    """CPU-microarchitecture tag for the default cache path: XLA:CPU AOT
     executables embed machine features and abort (SIGILL) when loaded on
     a host with different ones — cache entries must never cross hosts."""
     try:
@@ -35,7 +27,18 @@ def _arch_tag():
     return platform.machine()
 
 
-_jax.config.update("jax_compilation_cache_dir",
-                   _os.path.join(_os.path.abspath(_cache), _arch_tag()))
+def default_cache_dir():
+    """Persistent compile cache used when JAX_COMPILATION_CACHE_DIR is not
+    set: <checkout>/.jax_cache/<cpu features>."""
+    root = _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
+                         _os.pardir, ".jax_cache")
+    return _os.path.join(_os.path.abspath(root), _arch_tag())
+
+
+# Persistent compilation cache: the MD step is one large XLA program whose
+# first compile takes a while at production sizes.  JAX reads
+# JAX_COMPILATION_CACHE_DIR itself; only without it is a directory set here.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", default_cache_dir())
 _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

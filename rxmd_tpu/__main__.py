@@ -20,9 +20,9 @@ def main(argv=None):
     # multi-host launch (the MPI-world analog, ref: main.F90:10): set
     # RXMD_COORDINATOR=host:port RXMD_NUM_PROCESSES=N RXMD_PROCESS_ID=i on
     # every process; the device mesh then spans all processes and the
-    # sharded engine's collectives ride ICI/DCN.
+    # sharded engine's collectives cross process boundaries.
+    import jax
     if os.environ.get("RXMD_COORDINATOR"):
-        import jax
         jax.distributed.initialize(
             coordinator_address=os.environ["RXMD_COORDINATOR"],
             num_processes=int(os.environ["RXMD_NUM_PROCESSES"]),
@@ -32,6 +32,10 @@ def main(argv=None):
     if os.path.exists(args.rxmdin):
         cfg = config.parse_rxmd_in(args.rxmdin, cfg)
     cfg = config.apply_cli(cfg, args)
+    if np.dtype(cfg.dtype) == np.float64:
+        # float64 means float64: without x64 every array would silently be
+        # float32.  f32 runs leave it off so indices stay 32-bit.
+        jax.config.update("jax_enable_x64", True)
 
     ff = ffield.parse_ffield(cfg.ffield_path, lg=getattr(args, "lg", False))
 
@@ -58,7 +62,6 @@ def main(argv=None):
     if sharded:
         # spatial domain decomposition over a device mesh shaped like the
         # rxmd.in `processors` grid (ref: cmdline.F90:273-276, init.F90:48-53)
-        import jax
         from .parallel.engine import ShardedEngine
         if len(jax.devices()) < nvp:
             print(f"ERROR: processors {cfg.vprocs} needs {nvp} devices, "
@@ -70,8 +73,7 @@ def main(argv=None):
     p0 = True
     if os.environ.get("RXMD_COORDINATOR"):
         # multi-host: rank 0 prints and writes (ref: `if(myid==0)` guards)
-        import jax as _jax
-        p0 = _jax.process_index() == 0
+        p0 = jax.process_index() == 0
         if not p0:
             sys.stdout = open(os.devnull, "w")
     print("-" * 64)
@@ -82,6 +84,12 @@ def main(argv=None):
     print(f"{'isQEq,QEq_tol,NMAXQEq,qstep:':>30s} {cfg.isQEq} "
           f"{cfg.QEq_tol:.1e} {cfg.NMAXQEq} {cfg.qstep}")
     print(f"{'NATOMS:':>30s} {st.n}")
+    print(f"{'device:':>30s} {jax.devices()[0].platform} "
+          f"{jax.devices()[0].device_kind} x{len(jax.devices())} "
+          f"dtype {jnp.dtype(dtype).name}")
+    pair_path, qeq_path = (("ELL gather (sharded)", "ELL gather (sharded)")
+                           if sharded else eng.path_names())
+    print(f"{'pair path, QEq path:':>30s} {pair_path}; {qeq_path}")
     if sharded:
         print(f"{'req proc arrangement:':>30s} {cfg.vprocs} "
               f"ncap {eng.ncap} bcap {eng.bcap}")

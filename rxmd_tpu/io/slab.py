@@ -2,7 +2,7 @@
 
 The reference writes trajectory/checkpoint files as MPI-IO shared files
 with per-rank offsets computed by MPI_Scan (ref: fileio.F90:81-95,587-643).
-The TPU analog here: every process writes ONLY its own residents into a
+The analog here: every process writes ONLY its own residents into a
 shared (filesystem) file at precomputed byte offsets — O(N/nprocs) traffic
 per process instead of the O(N*nprocs) full-state allgather of
 `ShardedEngine.to_state`.

@@ -1,6 +1,6 @@
 """Neighbor-list construction on fixed-shape padded arrays.
 
-TPU-first redesign of the reference's linked-cell + neighbor-list machinery
+A fixed-shape redesign of the reference's linked-cell + neighbor-list machinery
 (ref: main.F90:277-477).  Instead of ragged linked lists we build:
 
   * an *extended* atom set: the N owned atoms followed by ghost periodic
@@ -54,8 +54,7 @@ class ImageTable(NamedTuple):
 
     def owner_of(self, idx):
         """Owner of extended index, computed arithmetically (owner[m] = m % N
-        by construction) — a 2.6M-element `owner[idx]` gather costs ~23 ms on
-        TPU, `idx % N` is free."""
+        by construction): `idx % N` needs no gather."""
         if self.n_images == 1:
             return idx
         return idx % jnp.int32(self.n_own)
@@ -113,15 +112,13 @@ def _select_k(mask, k):
     A capacity beyond the candidate width pads with -1.
 
     Row-wise cumsum + scatter compaction: O(C) per row with per-row-sorted
-    scatter indices.  (A top_k over the full candidate width lowers to an
-    iterative TPU sort network — measured 460 ms for (4.5k, 1700) -> 640
-    where this formulation takes ~10 ms.)"""
+    scatter indices, where a top_k over the full candidate width would
+    sort."""
     keff = min(k, mask.shape[-1])
     n, C = mask.shape
     pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32) - 1
     # flat 1-D scatter with strictly increasing destinations (row-major,
-    # rank-ordered): XLA's sorted-scatter path.  A 2-D row scatter, a
-    # top_k, and a batched searchsorted all measured 50-80x slower here.
+    # rank-ordered): XLA's sorted-scatter path
     sel = mask & (pos < keff)
     dst = jnp.where(sel, jnp.arange(n, dtype=jnp.int32)[:, None] * keff
                     + pos, n * keff)                    # OOB -> dropped
@@ -212,7 +209,7 @@ def _cell_table(pos, valid, grid: CellGrid):
     """Bin atoms into cells; returns (table (C+1, ccap) of atom indices with
     -1 padding, cid3 (M,3), counts-per-cell overflow indicator).
 
-    TPU-native replacement of the reference's linked-cell lists
+    Fixed-shape replacement of the reference's linked-cell lists
     (ref: LINKEDLIST main.F90:277-318): sort by cell id + fixed-capacity
     scatter instead of linked pointers."""
     m = pos.shape[0]
@@ -257,8 +254,7 @@ def _cell_table_packed(pos, valid, types, grid: CellGrid):
     """Cell binning with PACKED per-slot payloads: positions + type in a
     (ncell+1, ccap, 4) array (FAR sentinel in empty slots) and the ext-row
     index table.  Stencil consumers then gather whole ccap-row blocks —
-    coarse-grained transfers instead of 12-byte scattered picks (measured
-    ~6x faster at 20M candidate slots)."""
+    coarse-grained transfers instead of 12-byte scattered picks."""
     m = pos.shape[0]
     nc = np.array(grid.ncells)
     ctot = int(np.prod(nc))
@@ -300,9 +296,7 @@ def build_neighbors_cells(pos, valid, types, grid: CellGrid, rc2_by_type,
 
     `row_chunk` > 0 computes the candidate sweep in target-row blocks of
     that size (lax.map): the one-shot sweep materializes the stencil
-    payload gather for ALL rows at once, and the TPU's (8,128) tiling
-    pads its (ccap, 4)-minor layout ~10x — 15 GB of HBM at N=25.2k
-    (SCALING.md "Large-N status").  Chunking bounds it to the block.
+    payload gather for ALL rows at once; chunking bounds it to the block.
     Output is identical."""
     m = pos.shape[0]
     nrows = nrows or m

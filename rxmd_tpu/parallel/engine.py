@@ -1,6 +1,6 @@
 """Sharded MD engine: 3-D spatial domain decomposition over a device mesh.
 
-The TPU-native equivalent of the reference's MPI rank grid
+The JAX equivalent of the reference's MPI rank grid
 (ref: init.F90:75-100): a `jax.sharding.Mesh` with axes ("x","y","z"), one
 spatial subdomain per device, fixed per-device atom capacity.
 
@@ -137,6 +137,8 @@ class ShardedEngine:
         if cfg.mdmode == 0:
             cfg.isQEq = 1      # ref: init.F90:56-63
         self.dtype = dtype or jnp.dtype(cfg.dtype)
+        from ..md import require_dtype
+        require_dtype(self.dtype)
         devices = devices if devices is not None else jax.devices()
         if mesh_shape is None:
             mesh_shape = factor_mesh(len(devices))
@@ -433,9 +435,8 @@ class ShardedEngine:
                 ks=self.caps["ks"], slack=self.term_slack,
                 margin=self.term_margin,
                 rowcap=self.caps.get("ang_row", 0))
-            # row-chunked builds above list_chunk local rows: the one-shot
-            # torsion/hbond builds crash the TPU compile service at large
-            # N (SCALING.md); chunking is bit-identical
+            # row-chunked builds above list_chunk local rows bound the
+            # builds' peak memory; chunking is bit-identical
             chunk = (self.cfg.list_chunk
                      if 0 < self.cfg.list_chunk < self.mext else 0)
             tl = reax.build_torsion_list(

@@ -1,6 +1,6 @@
 """Polarizable charge equilibration (PQEq) — core/shell model.
 
-TPU-native re-design of the reference solver (ref: src/pqeq.F90) and its
+A JAX re-design of the reference solver (ref: src/pqeq.F90) and its
 helpers (ref: module.F90:336-613).  Each polarizable atom carries a Gaussian
 core of charge q_i + Z_i at pos and a shell of charge -Z_i at pos + spos.
 Charges are solved by the same two-vector CG as QEq but with erf-screened

@@ -1,6 +1,6 @@
 """Charge equilibration (QEq) — two-vector conjugate-gradient solver.
 
-TPU-native re-design of the reference solver (ref: src/qeq.F90).  The
+A JAX re-design of the reference solver (ref: src/qeq.F90).  The
 (s, t) vectors are solved jointly as one (N, 2) stacked state: every matvec
 is a single row gather + fused multiply-add, and the per-iteration dot
 products collapse into ONE fused allreduce (the reference already batches
@@ -18,7 +18,7 @@ hook so the identical code runs single-chip (identity) and under shard_map
 (ref: nompi.f90, qeq.F90:107-144).
 
 On a single shard with a full CG solve (isQEq=1) the sparse rows are folded
-into a dense (N, N) matrix once and every matvec rides the MXU; for the
+into a dense (N, N) matrix once and every matvec is one matmul; for the
 extended-Lagrangian mode (isQEq=2, one iteration — the reference's scaling
 configuration, conf/bg-bench/rxmd.in) the ELL form is cheaper.
 
@@ -38,6 +38,12 @@ from .reax import (FFDev, _table_lerp, _table_rows, _safe, nb_ctx,
                    cf_qeq_kernel, pair_bond_type, ctx_prm)
 
 
+def dense_matvec(A, x):
+    """The dense QEq matvec A @ x (one matmul; its operands are what a
+    reduced-precision matmul, e.g. TF32 on a GPU, would round)."""
+    return A @ x
+
+
 class QEqResult(NamedTuple):
     q: jax.Array          # (N,) converged charges
     qs: jax.Array
@@ -51,8 +57,7 @@ def solve(pos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
           tol: float = 1e-7, lex_fqs: float = 1.0, allreduce=None,
           lmin_f32: bool = False, refresh=None,
           resident_ext=None, closed_form=None, pre=None,
-          dense_max: int = 8192, pair_ops=None,
-          direct: bool = False) -> QEqResult:
+          dense_max: int = 8192, direct: bool = False) -> QEqResult:
     """Solve for charges.  isqeq=1: full CG (ref: qeq.F90:39-48);
     isqeq=2: extended-Lagrangian warm start, one iteration
     (ref: qeq.F90:51-57).
@@ -88,9 +93,9 @@ def solve(pos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
 
     if direct and local_only:
         # dense minimum-image hessian (no neighbor list, no gathers): the
-        # matrix build is pure VPU + one-hot MXU work and every CG matvec
-        # is an (n,n)@(n,2) MXU matmul streaming at HBM speed (the TPU-
-        # native answer to the reference's gather-bound get_hsh,
+        # matrix build is elementwise work plus one-hot matmuls and every
+        # CG matvec is an (n,n)@(n,2) matmul streaming from device memory
+        # (in place of the reference's gather-bound get_hsh,
         # qeq.F90:271-318).  The engine enables this for orthogonal boxes
         # with min(L) > 2*rctap and n <= dense_direct_max.
         from .reax import qeq_dense_direct
@@ -99,38 +104,12 @@ def solve(pos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
         chi = jnp.where(amask, ffd.chi[types], 0.0)
 
         def matvec2(X):
-            return eta[:, None] * X + Hd @ X
+            return eta[:, None] * X + dense_matvec(Hd, X)
 
         def matvec2_and_est(Hv, qcur):
             per_atom = (chi * qcur + 0.5 * eta * qcur * qcur
-                        + (Hw @ qcur) * qcur)
+                        + dense_matvec(Hw, qcur) * qcur)
             return matvec2(Hv), jnp.sum(jnp.where(amask, per_atom, 0.0))
-
-        def gradient(X):
-            rhs = jnp.stack([-chi, -w], axis=1)
-            return jnp.where(amask[:, None], rhs - matvec2(X), 0.0)
-
-        return _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs,
-                   lmin_f32, allreduce, matvec2_and_est, gradient)
-
-    if pair_ops is not None:
-        # Pallas cell-column sweep (ops/pairsweep): the hessian is never
-        # materialized; each call recomputes the shielded-Coulomb kernel
-        # over dense slab tiles — no per-pair gathers at all
-        eta = jnp.where(amask, ffd.eta[types], 0.0)
-        chi = jnp.where(amask, ffd.chi[types], 0.0)
-        w = amask.astype(dtype)
-
-        def matvec2(X):
-            mvs, mvt, _ = pair_ops.sweep3(X[:, 0], X[:, 1],
-                                          jnp.zeros_like(X[:, 0]))
-            return eta[:, None] * X + jnp.stack([mvs, mvt], axis=1)
-
-        def matvec2_and_est(Hv, qcur):
-            mvs, mvt, estp = pair_ops.sweep3(Hv[:, 0], Hv[:, 1], qcur)
-            mv = eta[:, None] * Hv + jnp.stack([mvs, mvt], axis=1)
-            per_atom = chi * qcur + 0.5 * eta * qcur * qcur + estp * qcur
-            return mv, jnp.sum(jnp.where(amask, per_atom, 0.0))
 
         def gradient(X):
             rhs = jnp.stack([-chi, -w], axis=1)
@@ -184,15 +163,14 @@ def solve(pos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
     def pair_energy(qcur):
         """Σ_k est_w·H_ik·q_k per atom i, ELL form (one row gather per
         call — it runs once per CG iteration, so a dense fold would cost
-        more to build than it saves).  2-column row-gather form: both the
-        flat 1-D and single-column forms take the TPU's serial path
+        more to build than it saves).  2-column row-gather form
         (cf. reax._rowgather1)."""
         qr = refresh(qcur)
         qj = jnp.where(mask, reax._rowgather1(qr, oj), 0.0)
         return jnp.sum(est_w * hz * qj, axis=1) * qcur
 
     # On a single shard a long CG solve is gather-bound in ELL form; fold
-    # the owner mapping into a dense matrix once and ride the MXU instead.
+    # the owner mapping into a dense matrix once and matmul instead.
     # The 1-iteration extended-Lagrangian mode does only ~3 matvec sweeps,
     # where three (n,knb,2) row gathers are cheaper than one dense scatter
     # build — it stays in ELL form.  Memory caps the dense path at
@@ -204,7 +182,7 @@ def solve(pos, q, qsfp, H, types, img: ImageTable, nbrs: Neighbors,
         Hd = jnp.zeros((n, n), dtype).at[row, oj].add(hz)
 
         def matvec2(X):                      # X: (n, 2)
-            return eta[:, None] * X + Hd @ X
+            return eta[:, None] * X + dense_matvec(Hd, X)
     else:
         def matvec2(X):
             """(eta*I + H) X for stacked vectors, ghosts refreshed."""
@@ -248,7 +226,7 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
         allreduce, matvec2_and_est, gradient):
     """Two-vector CG with the reference's exact termination semantics
     (ref: qeq.F90:96-166), parameterized over the matvec/Est implementation
-    (ELL row gathers, dense MXU, or the Pallas cell-column sweep)."""
+    (ELL row gathers or a dense matmul)."""
     if isqeq == 2:
         qs0 = jnp.where(amask, lex_fqs * qsfp + (1.0 - lex_fqs) * q, 0.0)
         nmax_eff = 1
@@ -280,8 +258,8 @@ def _cg(q, qsfp, amask, dtype, isqeq, nmax, tol, lex_fqs, lmin_f32,
     def body(c):
         (it, X, qcur, Hv, G, gnew, gest2, _, done) = c
         HH, est_l = matvec2_and_est(Hv, qcur)          # (n, 2), ()
-        # one fused allreduce for: est, g.h (2), h.Hh (2) — the TPU analog
-        # of the reference's batched 4-scalar MPI buffer (qeq.F90:126-131)
+        # one fused allreduce for: est, g.h (2), h.Hh (2) — the analog of
+        # the reference's batched 4-scalar MPI buffer (qeq.F90:126-131)
         red = allreduce(jnp.concatenate([
             est_l[None], jnp.sum(G * Hv, axis=0), jnp.sum(Hv * HH, axis=0)]))
         est, g_h, h_hsh = red[0], red[1:3], red[3:5]

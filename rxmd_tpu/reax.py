@@ -1,10 +1,11 @@
 """ReaxFF potential: bond-order pipeline and all energy terms.
 
-TPU-native re-design of the reference's force kernels (ref: src/bo.F90,
+A JAX re-design of the reference's force kernels (ref: src/bo.F90,
 src/pot.F90).  Everything operates on fixed-shape padded neighbor arrays and
-is fully vectorized; there are no per-atom loops and no scatter-atomics (the
-reference's `!$omp atomic` force scatters become the transpose of gathers
-under `jax.grad`, which XLA lowers to deterministic segment-sums).
+is fully vectorized; there are no per-atom loops.  The reference's
+`!$omp atomic` force scatters become the transpose of gathers under
+`jax.grad`: scatter-adds, which XLA lowers to segment sums on the CPU and
+to atomics on a GPU (so GPU sums may differ between runs in the last bits).
 
 Energy expressions reproduce the reference *exactly* (including the
 cutoff_vpar30 energy/force split, BO floors, and cutof2_esub shifts) so the
@@ -122,9 +123,9 @@ class FFDev(NamedTuple):
     rctap2: jax.Array
     # --- closed-form nonbond kernels (production path; the tables above are
     # kept for bit-parity validation against the reference's interpolation,
-    # ref: init.F90:421-522).  Gathering 8 table values per pair costs ~25 ms
-    # per 2.6M pairs on TPU; evaluating the analytic kernel on the VPU and
-    # selecting per-pair-type params with a one-hot matmul costs ~2 ms.
+    # ref: init.F90:421-522): evaluating the analytic kernel and selecting
+    # per-pair-type params with a one-hot matmul replaces 8 table-value
+    # gathers per pair.
     pvdW1h: jax.Array         # () scalar
     pvdW1inv: jax.Array
     ctap: jax.Array           # (8,) taper coefficients
@@ -133,7 +134,7 @@ class FFDev(NamedTuple):
                               #  acore, 1/rcore]
     is_lg: bool               # static
     # packed per-interaction-type parameter rows (one row gather replaces
-    # 9-17 separate small-table gathers at ~15 ms each)
+    # 9-17 separate small-table gathers)
     angprm: jax.Array         # (nanty, 17)
     torprm: jax.Array         # (ntoty, 9)
     hbprm: jax.Array          # (nhbty, 4)
@@ -297,12 +298,11 @@ def _logistic(u):
 # ----------------------------------------------------------------------------
 # Shared nonbonded pair context.
 #
-# On TPU the dominant cost of the pair terms is random HBM gathers (~23 ms
-# per 2.6M-element gather, measured) — NOT flops.  So: gather all per-neighbor
-# data (position, charge, type one-hot) in ONE packed row gather (~3x cheaper
-# per element than scalar gathers), derive everything else arithmetically,
-# and select per-pair-type parameters with a one-hot matmul on the MXU
-# (~15x cheaper than a small-table gather).
+# The pair terms are bound by random gathers from device memory, not by
+# flops.  So: gather all per-neighbor data (position, charge, type) in ONE
+# packed row gather, derive everything else arithmetically, and select
+# per-pair-type parameters with a one-hot matmul instead of a small-table
+# gather.
 # ----------------------------------------------------------------------------
 
 class NbCtx(NamedTuple):
@@ -311,9 +311,8 @@ class NbCtx(NamedTuple):
     notself: jax.Array  # (n, knb) excludes periodic self-images (gid rule,
                         # ref: pot.F90:715) — QEq keeps them, ENbond drops
     dr: jax.Array       # (3, n, knb) r_i - r_j, CHANNEL-MAJOR (stop-grad):
-                        # an (n*knb, 3)-shaped buffer tiles its minor dim
-                        # 3 -> 128 on TPU (42.7x padded HBM — 12 GB at
-                        # N=36k, SCALING.md); channel-major tiles cleanly
+                        # keeps the size-3 axis out of the minor dimension,
+                        # which tiled layouts pad
     dr2: jax.Array      # (n, knb)
     qj: jax.Array       # (n, knb)
     tjf: jax.Array      # (n, knb) neighbor type as float (gathered col)
@@ -322,15 +321,15 @@ class NbCtx(NamedTuple):
 
 def ctx_tjoh(ctx: NbCtx):
     """Neighbor-type one-hot (n, knb, nso), computed on the fly from the
-    gathered float type column (a VPU compare, cheaper than gathering nso
-    one-hot columns per pair)."""
+    gathered float type column (an elementwise compare, cheaper than
+    gathering nso one-hot columns per pair)."""
     t = jax.lax.broadcasted_iota(ctx.tjf.dtype, (ctx.nso,), 0)
     return (ctx.tjf[..., None] == t).astype(ctx.tjf.dtype)
 
 
 def ctx_prm(ctx: NbCtx, types, ffd: FFDev):
     """Closed-form pair params (n, knb, P) for the analytic kernels:
-    one-hot x per-row param matrix (MXU batched matmul, exact)."""
+    one-hot x per-row param matrix (batched matmul, exact)."""
     prow = ffd.cf_pair[types]                # (n, nso, P): tiny gather
     return jnp.einsum("nkc,ncp->nkp", ctx_tjoh(ctx), prow,
                       preferred_element_type=prow.dtype)
@@ -339,14 +338,11 @@ def ctx_prm(ctx: NbCtx, types, ffd: FFDev):
 def ctx_qj(ctx: NbCtx, q, img: ImageTable):
     """Neighbor charges (n, knb) for a given charge vector — a 1-column
     gather, so QEq (pre-solve q) and the nonbond kernels (post-solve q) can
-    share one geometry context.  The (m, 1) row-gather form lowers to the
-    TPU's tiled-row gather path; the flat 1-D form takes the slow scalar
-    path (measured 4-15x slower at 3M pairs)."""
-    # gather by OWNER (q is image-independent) in the 2-column row-gather
-    # form, which lowers to the TPU's fast tiled gather (5 ms at 3M pairs);
-    # a single-column gather lowers to the flat scalar path (20.7 ms).  The
-    # barrier hides that the columns are identical (XLA would narrow the
-    # gather back to one column), and averaging them keeps both used.
+    share one geometry context."""
+    # gather by OWNER (q is image-independent) in 2-column row-gather form
+    # (a lowering choice; see _rowgather2).  The barrier hides that the
+    # columns are identical (XLA would narrow the gather back to one
+    # column), and averaging them keeps both used.
     oj = img.owner_of(ctx.idx)
     qpack = jax.lax.optimization_barrier(jnp.stack([q, q], axis=1))
     rows = qpack[oj]
@@ -469,15 +465,13 @@ def cf_qeq_kernel(dr2, prm, ffd: FFDev, mask):
 
 
 # ----------------------------------------------------------------------------
-# Dense minimum-image nonbonded kernels (TPU fast path for moderate N).
+# Dense minimum-image nonbonded kernels (fast path for moderate N).
 #
-# The ELL neighbor-list formulation is gather-bound on TPU: XLA's dynamic
-# row gathers run at ~5-30 GB/s against ~800 GB/s HBM (measured: the exL
-# QEq solve spends 62 of a 105 ms step in 3 such gathers at N=4536).  For
+# The ELL neighbor-list formulation is bound by dynamic row gathers.  For
 # moderate system sizes an O(N^2) dense evaluation with minimum-image
 # wrapping has NO gathers at all: per-pair type parameters come from tiny
-# one-hot MXU matmuls, the pair kernel is pure VPU work, and the QEq CG
-# matvecs become (n,n)@(n,2) MXU matmuls that stream at HBM speed.
+# one-hot matmuls, the pair kernel is elementwise work, and the QEq CG
+# matvecs become (n,n)@(n,2) matmuls that stream from device memory.
 # Valid when the box is orthogonal and min(L) > 2*rctap (every pair has at
 # most one image within the cutoff); selected by the engine for
 # n <= cfg.dense_direct_max.  Physics is identical to the closed-form ELL
@@ -485,8 +479,8 @@ def cf_qeq_kernel(dr2, prm, ffd: FFDev, mask):
 # ----------------------------------------------------------------------------
 
 def _type_prm_dense(types, P):
-    """(n, n) per-pair parameter matrix  P[t_i, t_j]  via two one-hot MXU
-    contractions (never a 20M-element small-table gather)."""
+    """(n, n) per-pair parameter matrix  P[t_i, t_j]  via two one-hot
+    matmuls (never a 20M-element small-table gather)."""
     nso = P.shape[0]
     dtype = P.dtype
     oh = (types[:, None] == jnp.arange(nso)[None, :]).astype(dtype)  # (n,nso)
@@ -584,7 +578,7 @@ def _table_rows(ffd: FFDev, bc, dr2, mask):
 
 def _pair_virial(ffac, dr):
     """Pair virial W_ab = -dE/deps_ab over directed rows: each undirected
-    pair appears twice, hence the 0.5 (the TPU analog of the reference's
+    pair appears twice, hence the 0.5 (the analog of the reference's
     Σ pos·f accumulation incl. ghost rows, pot.F90:65-72).  `dr` is
     channel-major (3, n, knb)."""
     return -0.5 * jnp.einsum("nk,ank,bnk->ab", ffac, dr, dr,
@@ -664,11 +658,10 @@ class BondOrder(NamedTuple):
 
 @jax.custom_vjp
 def _rowtake(tab, idx):
-    """Row gather `tab[idx]` with BOTH directions pinned to the TPU's fast
-    tiled paths.  A gather or its VJP scatter-add embedded inside an XLA
-    fusion lowers to a serial scalar loop (~1 ms at 100k rows, measured);
-    standalone they cost ~0.02 ms.  Optimization barriers around the
-    backward scatter keep XLA from re-fusing it."""
+    """Row gather `tab[idx]` whose gather and VJP scatter-add each stay a
+    standalone operation: optimization barriers keep XLA from fusing them
+    into their consumers.  (A lowering choice made for another backend;
+    whether it helps XLA:GPU is not yet measured.)"""
     return jax.lax.optimization_barrier(
         jax.lax.optimization_barrier(tab)[idx])
 
@@ -681,10 +674,7 @@ def _rowtake_bwd(res, ct):
     idx, shape = res
     R, C = shape
     ct = jax.lax.optimization_barrier(ct)
-    # 2-D row scatter-add: the interleaved flat R*C form and per-column
-    # 1-D forms both measured SLOWER at N=10.7k (157/139 vs 92 ms
-    # bonded-pass total) despite the layout-flip pathology the row form
-    # shows there — the row scatter is the best known lowering.
+    # 2-D row scatter-add (one scatter for all C columns)
     g = jnp.zeros((R, C), ct.dtype).at[idx].add(ct)
     return jax.lax.optimization_barrier(g), np.zeros(idx.shape,
                                                      jax.dtypes.float0)
@@ -694,20 +684,17 @@ _rowtake.defvjp(_rowtake_fwd, _rowtake_bwd)
 
 
 def _rowgather1(vec, idx):
-    """Single-vector per-atom -> per-pair pick on the tiled row-gather
-    path (both columns consumed so XLA cannot narrow the gather back to
-    the serial 1-column form; cf. ctx_qj)."""
+    """Single-vector per-atom -> per-pair pick in 2-column row-gather
+    form (both columns consumed so XLA cannot narrow the gather back to
+    one column; cf. ctx_qj)."""
     a, b = _rowgather2(vec, vec, idx)
     return 0.5 * (a + b)
 
 
 def _rowgather2(veca, vecb, idx):
     """Gather TWO per-atom vectors to pair slots with one 2-column
-    row-gather behind an optimization barrier: the row form lowers to the
-    TPU's tiled gather (~0.05 ms at 127k pairs), while a flat 1-D gather
-    embedded in a fusion lowers to a serial scalar loop (~1.7 ms measured);
-    cf. ctx_qj.  The barrier stops XLA from re-fusing (and re-serializing)
-    the gather into its consumers."""
+    row-gather behind an optimization barrier, which stops XLA from fusing
+    the gather into its consumers (cf. _rowtake)."""
     pack = jax.lax.optimization_barrier(jnp.stack([veca, vecb], axis=1))
     rows = _rowtake(pack, idx)
     return rows[..., 0], rows[..., 1]
@@ -732,7 +719,7 @@ def bond_order(pos, H, types, img: ImageTable, nbrs: Neighbors,
     # pair displacements via the CONSTANT shift table: dr = pos_i -
     # (pos[owner] + shift@H^T).  Differentiating pose=ext_positions(pos)
     # instead would back-scatter cotangents into the (S*n, 3) extended
-    # table and image-reduce it (~2.6 ms/pass at N=4.5k); this form
+    # table and image-reduce it; this form
     # scatters straight into the (n, 3) owner rows, and the H-gradient
     # (strain virial) becomes an einsum against the gathered shifts.
     shg = img.shift.astype(pos.dtype)[idx]       # (N, kb, 3), constant
@@ -907,8 +894,8 @@ def _ext_key(img):
 def _row_topk_slots(mask2d, cap):
     """Per-row compaction: indices of up to `cap` True entries of a (n, S)
     boolean mask, lowest index first.  Returns (idx (n,cap), valid (n,cap),
-    counts (n,)).  TPU-native replacement for the reference's dynamic
-    interaction enumeration loops — fixed shapes, data-parallel."""
+    counts (n,)).  Replaces the reference's dynamic interaction
+    enumeration loops — fixed shapes, data-parallel."""
     vals, idx = jax.lax.top_k(mask2d.astype(jnp.int32), cap)
     valid = vals > 0
     return jnp.where(valid, idx, 0), valid, mask2d.sum(axis=1, dtype=jnp.int32)
@@ -991,9 +978,8 @@ def _flat_compact_rows(mask, cap, rowcap):
     staging table (per-row cumsum + one flat scatter); stage 2 runs the
     plain flat pack over the staging table.  This replaces the global
     cumsum over R*S elements (S = ks^3 for torsions, kh*knb for hbonds —
-    tens of millions at production N, the shapes implicated in the
-    large-N compile-service crash, SCALING.md) with a per-row scan plus
-    a pack over R*rowcap elements, typically 15-50x smaller.
+    tens of millions at production N) with a per-row scan plus a pack
+    over R*rowcap elements, typically 15-50x smaller.
 
     A row overflowing `rowcap` cannot be packed faithfully; it is
     surfaced by returning a sentinel cnt (2^30) so every existing
@@ -1026,10 +1012,8 @@ def _flat_compact_mapped(mask_rows_fn, n, S, cap, rowcap, chunk):
     center rows.  Output is identical to
     `_flat_compact_rows(stack_of_all_rows, cap, rowcap)`, but the (n, S)
     mask and its stage-1 intermediates never exist at once — peak
-    footprint is (chunk, S), which keeps the torsion/hbond list builds
-    inside the TPU compile service's limits at production N
-    (SCALING.md "Large-N status": the one-shot build crashes the worker
-    at N >= 16.8k)."""
+    footprint is (chunk, S), which bounds the torsion/hbond list builds'
+    memory at large N."""
     nblk = -(-n // int(min(chunk, n)))
     B = -(-n // nblk)            # balanced blocks: waste < nblk rows
     npad = nblk * B
@@ -1186,8 +1170,7 @@ def e_3body(pos, H, types, img, nbrs, bo: BondOrder, lp: LonePair, amask,
     delta_ang_n = bo.delta + ffd.Val[types] - ffd.Valangle[types]
 
     # packed row gathers: ONE (M, 4) bond-row gather per leg and ONE
-    # (M, 8) center-row gather replace ~14 flat 1-D gathers (the flat
-    # form takes the TPU's slow scalar-gather path; cf. ctx_qj)
+    # (M, 8) center-row gather replace ~14 flat 1-D gathers
     bpack = jnp.concatenate([bo.bo[..., 0:1], bo.drb],
                             axis=-1).reshape(n * kb, 4)
     rowa = _rowtake(bpack, j * kb + a)
@@ -1292,7 +1275,7 @@ def _torsion_mask_rows(rows, cand, types, gid, img, bo: BondOrder, amask,
     global candidate tables `cand` (from _term_candidates).  Row-separable
     by construction: the l-side indexes the GLOBAL tables through oj_s, so
     any subset of rows yields exactly the corresponding mask rows — the
-    basis of the chunked large-N build (SCALING.md)."""
+    basis of the chunked large-N build."""
     sslot, svalid, _, bo_eff, oj, idx = cand
     ks = sslot.shape[1]
     esub = units.CUTOF2_ESUB * slack
@@ -1331,9 +1314,9 @@ def _torsion_mask_rows(rows, cand, types, gid, img, bo: BondOrder, amask,
                 * E(bo_kl) > units.MINBO0 * slack)
              & (A(key_ext[idx_s]) != E(key_l))          # i != l
              & (key_j[:, None] != E(key_l)))            # j != l
-    # torsion-type existence on the (a,c,e) grid: a 7.8M-element 4-D table
-    # gather costs ~60 ms on TPU; a row gather over (c,e) plus a one-hot MXU
-    # contraction over the i-type axis costs ~5 ms.
+    # torsion-type existence on the (a,c,e) grid: a row gather over (c,e)
+    # plus a one-hot contraction over the i-type axis instead of a
+    # 7.8M-element 4-D table gather.
     ti_s = types[oj_s]                                  # (B, ks)
     tle = types[img.owner_of(idx_le)]                   # (B, c, e)
     t4okT = jnp.moveaxis(ffd.t4ok, 0, -1)               # (j, k, l, i-type)
@@ -1558,10 +1541,9 @@ def _hbond_rows_m(rows, tab, pos, types, nbrs, ffd: FFDev, margin: float):
     rik2 = jnp.sum(rik * rik, axis=-1)
     rchb2_m = (float(np.sqrt(units.RCHB2)) + margin) ** 2
     nso = ffd.hbok.shape[0]
-    # acceptor one-hot laid out (B, nso, knb), NOT (B, knb, nso): the TPU
-    # tiles the two minor dims to (8, 128), so an nso(~8)-minor buffer
-    # inflates ~16x when materialized as an einsum operand (6 GB at
-    # N=16.8k — enough to kill the worker; cf. SCALING.md large-N status)
+    # acceptor one-hot laid out (B, nso, knb), NOT (B, knb, nso): a small
+    # nso minor dimension pads badly in tiled layouts when materialized as
+    # an einsum operand
     tkoh = (tk_r[:, None, :] == jnp.arange(nso)[:, None]).astype(pos.dtype)
     hbrow = ffd.hbok[types[rows][:, None], th_r]           # (B, kh, nso)
     ok_t = jnp.einsum("nck,nhc->nhk", tkoh, hbrow,
@@ -1663,7 +1645,7 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
     acceptor k from i's nonbonded list within rchb.  Valid (j-slot, k-slot)
     pairs per donor are compacted into a per-atom list of capacity `cap`.
     With `ctx`, acceptor type/distance data is reused from the shared pair
-    context and the (n, kh, knb) acceptor-type test becomes a one-hot MXU
+    context and the (n, kh, knb) acceptor-type test becomes a one-hot
     contraction instead of a ~10M-element table gather.
     """
     if ffd.r0hb.shape[0] == 0:
@@ -1689,9 +1671,8 @@ def e_hbond(pos, H, types, img, nbrs, bo: BondOrder, amask, ffd: FFDev,
 
     if ctx is not None:
         # ---- grid mode: evaluate directly on the (n, kh, knb) lanes.
-        # Compaction would save flops but every post-compaction gather on the
-        # mostly-empty (n, cap~350) padded list costs ~10-15 ms on TPU; the
-        # dense grid is pure VPU work (~10M lanes ≈ a few ms) plus one
+        # Compaction would save flops but add gathers on a mostly-empty
+        # padded list; the dense grid is elementwise work plus one
         # differentiable acceptor row gather shared across all H slots.
         hbrow = ffd.hbok[types[:, None], th]           # (n, kh, nso) tiny
         okt = jnp.einsum("nkc,nhc->nhk", ctx_tjoh(ctx), hbrow,
@@ -1977,8 +1958,8 @@ def energy_and_forces(pos, q, H, types, gid, img, nbrs, ffd, amask=None,
         (_, comps), grad = jax.value_and_grad(etot, has_aux=True)(pos)
         f = -grad
     if external_nonbond is not None:
-        # nonbond computed by the Pallas cell-column sweep (ops/pairsweep);
-        # splice energies, row forces and pair virial into the result
+        # nonbond computed outside (the dense minimum-image path,
+        # `nonbond_dense`); splice energies, row forces and pair virial in
         evdw, eclmb, echarge, f_nb, w_nb = external_nonbond
         comps = comps.at[11].set(evdw).at[12].set(eclmb).at[13].set(echarge)
         comps = comps.at[0].set(jnp.sum(comps[1:]))

@@ -6,9 +6,9 @@ e.g. LINKEDLIST main.F90:297-316, COPYATOMS comm.F90:64-98, BOCALC
 bo.F90:10-23) and prints a per-phase max/min seconds table plus peak array
 occupancies and memory at exit (`FinalizeMD`, ref: main.F90:128-186).
 
-On TPU the interesting boundaries are different — XLA fuses the whole MD
-step into one computation, so intra-step phases are visible only through
-`jax.profiler`, not host clocks — but the host-level phases (compile,
+On an accelerator the interesting boundaries are different — XLA fuses the
+whole MD step into one computation, so intra-step phases are visible only
+through `jax.profiler`, not host clocks — but the host-level phases (compile,
 neighbor rebuild, step execution, trajectory I/O) and the occupancy /
 iteration counters map directly and are tracked here.
 """

@@ -1,25 +1,29 @@
-"""Dump compiled HLO of the production step and summarize named fusions."""
+"""Dump the compiled HLO of the production step and print named ops.
+
+    MC=3,3,3 python scripts/prof_hlo.py [op names...]
+
+Writes chiprun_out/step_hlo.txt.
+"""
 import os, sys, re
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/repo/.jax_cache')
 import jax
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from rxmd_tpu import ffield, system, md
+from rxmd_tpu import md
 from rxmd_tpu.config import RunConfig
+from rxmd_tpu.tools import geninputs
 
 dtype = jnp.float32
 mc = tuple(int(x) for x in os.environ.get("MC", "3,3,3").split(","))
-ff = ffield.parse_ffield("/root/reference/ffield")
-st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                          ff.name_to_type, mc=mc, dtype=dtype)
+ff, st = geninputs.load(mc, dtype)
 cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=20, pstep=10**9,
                 sstep=10**9, isQEq=2, QEq_tol=1e-7, dtype="float32")
 eng = md.Engine(ff, st, cfg, dtype=dtype)
 eng.prepare()
 args = (eng.state, eng.force, eng.nbrs, eng.tlists, eng._pos_ref, eng._astr)
 txt = eng._step.lower(*args).compile().as_text()
-open("/tmp/step_hlo.txt", "w").write(txt)
+os.makedirs("chiprun_out", exist_ok=True)
+with open(os.path.join("chiprun_out", "step_hlo.txt"), "w") as fh:
+    fh.write(txt)
 print("bytes:", len(txt))
 want = set(sys.argv[1:]) or {"fusion.55", "fusion.73", "fusion.74",
                              "fusion.54", "fusion.50", "fusion.46",

@@ -1,22 +1,22 @@
-"""FULL-STEP wall time vs system size on the real chip."""
+"""Full-step wall time vs system size (run it on the GPU).
+
+    MCS="2,2,2;4,4,3;6,6,6" ISQ=2 python scripts/prof_scaling.py
+"""
 import os, sys, time
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/repo/.jax_cache')
 import jax
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from rxmd_tpu import ffield, system, md
+from rxmd_tpu import md
 from rxmd_tpu.config import RunConfig
+from rxmd_tpu.tools import geninputs
 
 dtype = jnp.float32
-ff = ffield.parse_ffield("/root/reference/ffield")
 mcs = os.environ.get("MCS", "2,2,2;3,3,3;4,4,3;4,4,4;5,5,4;6,5,5;6,6,6").split(";")
 isq = int(os.environ.get("ISQ", "2"))
 for mcstr in mcs:
     mc = tuple(int(x) for x in mcstr.split(","))
     try:
-        st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                                  ff.name_to_type, mc=mc, dtype=dtype)
+        ff, st = geninputs.load(mc, dtype)
         cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=20, pstep=10**9,
                         sstep=10**9, isQEq=isq, QEq_tol=1e-7,
                         dtype="float32")

@@ -1,23 +1,22 @@
-"""Per-phase timing of the production step path on the real chip.
+"""Per-phase timing of the production step path (run it on the GPU).
+
+    MC=4,4,3 python scripts/prof_step.py
 
 Mirrors bench.py's config (isQEq=2, term_cache on) and times each stage of
 the step: QEq-exL, forces fwd+bwd, per-term pieces, and the rebuild path.
 """
 import os, sys, time
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/repo/.jax_cache')
 import jax
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from rxmd_tpu import ffield, system, md, neighbors, reax, qeq
+from rxmd_tpu import md, reax, qeq
 from rxmd_tpu.config import RunConfig
+from rxmd_tpu.tools import geninputs
 
 dtype = jnp.float32
 mc = tuple(int(x) for x in os.environ.get("MC", "3,3,3").split(","))
-ff = ffield.parse_ffield("/root/reference/ffield")
-st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                          ff.name_to_type, mc=mc, dtype=dtype)
+ff, st = geninputs.load(mc, dtype)
 cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=20, pstep=1000, sstep=10000,
                 isQEq=2, QEq_tol=1e-7, dtype="float32")
 eng = md.Engine(ff, st, cfg, dtype=dtype)
@@ -45,7 +44,7 @@ def timeit(name, fn, reps=10):
 
 # --- full step ---
 step = eng._step
-timeit("FULL STEP", lambda: step(s, eng.force, nbrs, lists, eng._slotmap, eng._pos_ref, eng._astr))
+timeit("FULL STEP", lambda: step(s, eng.force, nbrs, lists, eng._pos_ref, eng._astr))
 
 # --- rebuild ---
 timeit("rebuild (nbrs+lists)", lambda: eng._rebuild(s), reps=3)

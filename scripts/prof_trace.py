@@ -1,30 +1,32 @@
-"""jax.profiler trace of the production step; prints top self-time ops."""
-import os, sys, time, glob, gzip, json, collections
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/repo/.jax_cache')
+"""jax.profiler trace of the production step; prints the top device ops.
+
+    MC=3,3,3 python scripts/prof_trace.py      # on the GPU
+
+Writes the trace under chiprun_out/jaxtrace.
+"""
+import os, sys, glob, gzip, json, collections, shutil
 import jax
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from rxmd_tpu import ffield, system, md
+from rxmd_tpu import md
 from rxmd_tpu.config import RunConfig
+from rxmd_tpu.tools import geninputs
 
 dtype = jnp.float32
 mc = tuple(int(x) for x in os.environ.get("MC", "3,3,3").split(","))
-ff = ffield.parse_ffield("/root/reference/ffield")
-st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                          ff.name_to_type, mc=mc, dtype=dtype)
+ff, st = geninputs.load(mc, dtype)
 cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=20, pstep=10**9,
                 sstep=10**9, isQEq=2, QEq_tol=1e-7, dtype="float32")
 eng = md.Engine(ff, st, cfg, dtype=dtype)
 eng.prepare()
 eng.run(3, log=None)
 
-outdir = "/tmp/jaxtrace"
-os.system(f"rm -rf {outdir}")
+outdir = os.path.join("chiprun_out", "jaxtrace")
+shutil.rmtree(outdir, ignore_errors=True)
 with jax.profiler.trace(outdir):
     eng.run(5, log=None)
 
-# parse the trace: sum TPU-side op durations
+# parse the trace: sum the op durations on the GPU device planes
 files = glob.glob(outdir + "/**/*.trace.json.gz", recursive=True)
 print("trace files:", files, flush=True)
 ev = []
@@ -32,12 +34,13 @@ for fp in files:
     with gzip.open(fp, "rt") as f:
         data = json.load(f)
     ev.extend(data.get("traceEvents", []))
-# find TPU device pids
 pid_names = {e["pid"]: e["args"].get("name", "") for e in ev
              if e.get("ph") == "M" and e.get("name") == "process_name"
              and "args" in e}
+# device planes are named "/device:GPU:<n> ..."; host threads are not
 dev_pids = {p for p, nm in pid_names.items()
-            if "TPU" in nm or "/device" in nm.lower()}
+            if nm.lower().startswith("/device:gpu")}
+print("device planes:", sorted(pid_names[p] for p in dev_pids))
 agg = collections.Counter()
 cnt = collections.Counter()
 for e in ev:

@@ -1,35 +1,46 @@
-"""End-to-end golden tests on the RDX 168-atom deck.
+"""End-to-end tests on the 168-atom cell.
 
-The reference trace (ref: README.md:156-159) is fully deterministic: positions
-from conf/init.rdx/input.xyz, v=0, q=0, mdmode=1, dt=0.25 fs, QEq tol 1e-7.
-Step-0 per-atom energy components are compared at the precision the reference
-prints.
+Invariants (forces are the exact gradient, forces sum to zero, neighbor
+counts of a dense molecular crystal) run on the generated C3H6N6O6 cell.
+The golden digits come from the reference's RDX trace (ref:
+README.md:156-159: positions from conf/init.rdx/input.xyz, v=0, q=0,
+mdmode=1, dt=0.25 fs, QEq tol 1e-7) and run only against the reference's
+own input files (RXMD_REFERENCE_DIR).
 """
+import os
+
 import numpy as np
 import pytest
 
 from rxmd_tpu import ffield, system, neighbors, reax, qeq, units, md
 from rxmd_tpu.config import RunConfig
 
-FF = "/root/reference/ffield"
-CELL = "/root/reference/conf/init.rdx/input.xyz"
+
+# ang/tor are TOTAL flat-list capacities (168 atoms: ~1k angles, ~2k
+# torsion entries); hb is the per-donor capacity of the grid enumeration
+CAPS = {"ang": 2048, "tor": 4096, "hb": 1024}
 
 
-# ang/tor are TOTAL flat-list capacities; RDX-168 has ~1.5k angles, ~2.8k
-# torsion entries
-CAPS = {"ang": 2048, "tor": 4096, "hb": 384}
-
-
-@pytest.fixture(scope="module")
-def setup():
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+def _setup(ff_path, cell_path):
+    ff = ffield.parse_ffield(ff_path)
+    st = system.from_cellfile(cell_path, ff.name_to_type)
     ffd = reax.ffdev_from(ff)
     img = neighbors.make_image_table(
         st.n, neighbors.nimg_for_cutoff(np.asarray(st.H), units.RCTAP0))
     nbrs = neighbors.build_neighbors_brute(
-        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 512)
+        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 768)
     return ff, st, ffd, img, nbrs
+
+
+@pytest.fixture(scope="module")
+def setup(inputs):
+    return _setup(inputs["ffield"], inputs["input.xyz"])
+
+
+@pytest.fixture(scope="module")
+def golden(reference_dir):
+    return _setup(os.path.join(reference_dir, "ffield"),
+                  os.path.join(reference_dir, "conf/init.rdx/input.xyz"))
 
 
 def test_neighbor_counts(setup):
@@ -40,9 +51,9 @@ def test_neighbor_counts(setup):
     assert 350 <= mnb <= 512
 
 
-def test_step0_bonded_energies(setup):
+def test_step0_bonded_energies(golden):
     """Bonded terms are charge-independent -> checkable with q=0."""
-    _, st, ffd, img, nbrs = setup
+    _, st, ffd, img, nbrs = golden
     comps = np.asarray(reax.energy_components(
         st.pos, st.q, st.H, st.types, st.gid, img, nbrs, ffd, caps=CAPS)) / st.n
     assert abs(comps[1] - (-136.8986)) < 2e-3          # Ebond -1.369E+02
@@ -52,8 +63,8 @@ def test_step0_bonded_energies(setup):
     assert abs(comps[10] - (-1.398e-3)) < 2e-5         # Ehb
 
 
-def test_step0_qeq_and_total(setup):
-    _, st, ffd, img, nbrs = setup
+def test_step0_qeq_and_total(golden):
+    _, st, ffd, img, nbrs = golden
     res = qeq.solve(st.pos, st.q, st.qsfp, st.H, st.types, img, nbrs, ffd,
                     tol=1e-7, nmax=500)
     q = np.asarray(res.q)
@@ -105,11 +116,13 @@ def test_forces_sum_to_zero(setup):
 
 
 @pytest.mark.slow
-def test_nve_short_trajectory():
+def test_nve_short_trajectory(reference_dir):
     """20-step NVE: total energy drift bounded like the reference trace
     (README.md:157-159 shows |dTE| <~ 2e-4 per 100 steps)."""
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+    ff = ffield.parse_ffield(os.path.join(reference_dir, "ffield"))
+    st = system.from_cellfile(
+        os.path.join(reference_dir, "conf/init.rdx/input.xyz"),
+        ff.name_to_type)
     cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=20, pstep=100, sstep=1000)
     eng = md.Engine(ff, st, cfg)
     eng.prepare()

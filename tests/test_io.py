@@ -1,19 +1,16 @@
 """I/O round-trip tests: reference rxff.bin format, native checkpoint,
 trajectory writers."""
-import os
-
 import numpy as np
+import pytest
 
 from rxmd_tpu import ffield, system
 from rxmd_tpu.io import refbin, checkpoint, traj
 
-FF = "/root/reference/ffield"
-CELL = "/root/reference/conf/init.rdx/input.xyz"
 
-
-def _state():
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+@pytest.fixture
+def ff_state(inputs):
+    ff = ffield.parse_ffield(inputs["ffield"])
+    st = system.from_cellfile(inputs["input.xyz"], ff.name_to_type)
     rng = np.random.default_rng(1)
     import dataclasses
     import jax.numpy as jnp
@@ -25,8 +22,8 @@ def _state():
         qsfv=jnp.asarray(rng.normal(size=st.n) * 0.01))
 
 
-def test_refbin_roundtrip(tmp_path):
-    ff, st = _state()
+def test_refbin_roundtrip(ff_state, tmp_path):
+    ff, st = ff_state
     path = str(tmp_path / "rxff.bin")
     refbin.write_rxff_bin(path, st)
     st2, meta = refbin.read_rxff_bin(path)
@@ -48,8 +45,8 @@ def test_atype_encoding():
     assert (t0 == t1).all() and (gid == g1).all()
 
 
-def test_checkpoint_roundtrip(tmp_path):
-    ff, st = _state()
+def test_checkpoint_roundtrip(ff_state, tmp_path):
+    ff, st = ff_state
     path = str(tmp_path / "ck.npz")
     checkpoint.save(path, st)
     st2 = checkpoint.load(path)
@@ -58,8 +55,8 @@ def test_checkpoint_roundtrip(tmp_path):
     assert int(st2.step) == int(st.step)
 
 
-def test_xyz_roundtrip(tmp_path):
-    ff, st = _state()
+def test_xyz_roundtrip(ff_state, tmp_path):
+    ff, st = ff_state
     path = str(tmp_path / "t.xyz")
     traj.write_xyz(path, st, ff.atom_names)
     frames = list(traj.read_xyz_frames(path, ff.name_to_type))
@@ -70,12 +67,12 @@ def test_xyz_roundtrip(tmp_path):
     assert np.allclose(f["cell"][:3], [13.18, 11.57, 10.71], atol=1e-3)
 
 
-def test_refbin_multirank_roundtrip(tmp_path):
+def test_refbin_multirank_roundtrip(ff_state, tmp_path):
     """Per-rank slab write (ref: WriteBIN fileio.F90:587-643): atoms are
     binned into the vprocs grid in the reference's x-fastest rank order
     with local normalized coordinates, so the reference can restart at
     that layout; our reader reassembles the identical state."""
-    ff, st = _state()
+    ff, st = ff_state
     path = str(tmp_path / "rxff2.bin")
     refbin.write_rxff_bin(path, st, vprocs=(2, 2, 1))
     st2, meta = refbin.read_rxff_bin(path)

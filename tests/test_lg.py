@@ -1,5 +1,5 @@
-"""ReaxFF-lg (London dispersion + inner core) validation on the shipped
-conf/init.rdx.lg deck.
+"""ReaxFF-lg (London dispersion + inner core) validation on the generated
+lg ffield and cell (the reference's own lg deck is conf/init.rdx.lg).
 
 The reference publishes no console trace for the lg variant, so validation
 is built from independent internal implementations + invariants:
@@ -20,16 +20,12 @@ import jax.numpy as jnp
 from rxmd_tpu import ffield, system, neighbors, reax, qeq, units, md
 from rxmd_tpu.config import RunConfig
 
-FF_LG = "/root/reference/conf/init.rdx.lg/ffield"
-CELL_LG = "/root/reference/conf/init.rdx.lg/input.xyz"
-FF = "/root/reference/ffield"
-CAPS = {"ang": 2048, "tor": 4096, "hb": 384}
 
 
 @pytest.fixture(scope="module")
-def setup():
-    ff = ffield.parse_ffield(FF_LG, lg=True)
-    st = system.from_cellfile(CELL_LG, ff.name_to_type)
+def setup(inputs):
+    ff = ffield.parse_ffield(inputs["ffield.lg"], lg=True)
+    st = system.from_cellfile(inputs["input.xyz"], ff.name_to_type)
     ffd = reax.ffdev_from(ff)
     img = neighbors.make_image_table(
         st.n, neighbors.nimg_for_cutoff(np.asarray(st.H), units.RCTAP0))
@@ -67,7 +63,7 @@ def test_lg_dispersion_is_attractive(setup):
     e_nolg = reax.nonbond_cf_energy_forces(ctx, q, st.types, amask,
                                            ffd_nolg)
     disp = float(e_full[0]) - float(e_nolg[0])
-    # RDX crystal: dispersion of order -1 to -20 kcal/mol/atom
+    # molecular crystal: dispersion of order -1 to -20 kcal/mol/atom
     assert -30.0 < disp / st.n < -0.1, disp / st.n
 
 
@@ -100,10 +96,10 @@ def test_lg_fd_forces(setup):
 
 
 @pytest.mark.slow
-def test_lg_nve_conserves():
+def test_lg_nve_conserves(inputs):
     """10-step NVE on the lg deck: total energy drift bounded."""
-    ff = ffield.parse_ffield(FF_LG, lg=True)
-    st = system.from_cellfile(CELL_LG, ff.name_to_type)
+    ff = ffield.parse_ffield(inputs["ffield.lg"], lg=True)
+    st = system.from_cellfile(inputs["input.xyz"], ff.name_to_type)
     cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=10, isQEq=1,
                     QEq_tol=1e-7, qstep=1, pstep=100, sstep=10000)
     eng = md.Engine(ff, st, cfg)

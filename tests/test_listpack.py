@@ -12,19 +12,16 @@ import pytest
 
 from rxmd_tpu import ffield, system, neighbors, reax, units
 
-FF = "/root/reference/ffield"
-CELL = "/root/reference/conf/init.rdx/input.xyz"
-
 
 @pytest.fixture(scope="module")
-def setup():
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+def setup(inputs):
+    ff = ffield.parse_ffield(inputs["ffield"])
+    st = system.from_cellfile(inputs["input.xyz"], ff.name_to_type)
     ffd = reax.ffdev_from(ff)
     img = neighbors.make_image_table(
         st.n, neighbors.nimg_for_cutoff(np.asarray(st.H), units.RCTAP0))
     nbrs = neighbors.build_neighbors_brute(
-        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 512)
+        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 768)
     bo = reax.bond_order(st.pos, st.H, st.types, img, nbrs, ffd)
     amask = jnp.ones(st.n, bool)
     tc = reax.term_counts(st.pos, st.H, st.types, st.gid, img, nbrs, ffd)
@@ -53,9 +50,9 @@ def test_flat_compact_rows_overflow_sentinel():
 @pytest.mark.parametrize("which", ["torsion", "hbond"])
 @pytest.mark.parametrize("chunk", [7, 64])
 def test_builders_identical_chunked(setup, which, chunk):
-    """Row-chunked (lax.map) builds — the large-N path that keeps the
-    torsion/hbond builds inside the TPU compile service's limits
-    (SCALING.md) — must be bit-identical to the one-shot build."""
+    """Row-chunked (lax.map) builds — the large-N path that bounds the
+    torsion/hbond builds' peak memory — must be bit-identical to the
+    one-shot build."""
     st, ffd, img, nbrs, bo, amask, tc = setup
     ks = tc["degmax"] + 2
     if which == "torsion":
@@ -64,7 +61,8 @@ def test_builders_identical_chunked(setup, which, chunk):
             rowcap=tc["tor_row"] + 4, chunk=ch)
     else:
         mk = lambda ch: reax.build_hbond_list(
-            st.pos, st.H, st.types, img, nbrs, bo, amask, ffd, cap=4096,
+            st.pos, st.H, st.types, img, nbrs, bo, amask, ffd,
+            cap=tc["hbf"] + 64,
             kh=max(tc["h_slots"], 2), rowcap=tc["hb"] + 4, chunk=ch)
     l0, l1 = mk(0), mk(chunk)
     assert int(l0.cnt) > 0
@@ -74,8 +72,7 @@ def test_builders_identical_chunked(setup, which, chunk):
 
 def test_neighbor_build_identical_chunked(setup):
     """Row-chunked cell neighbor build (the large-N path bounding the
-    stencil gather's padded footprint, SCALING.md) must match the
-    one-shot build exactly."""
+    stencil gather's footprint) must match the one-shot build exactly."""
     st, ffd, img, nbrs, bo, amask, tc = setup
     H = np.asarray(st.H)
     L = np.diag(H)
@@ -86,10 +83,10 @@ def test_neighbor_build_identical_chunked(setup):
     valid = jnp.ones(pose.shape[0], bool)
     a, _ = neighbors.build_neighbors_cells(
         pose, valid, st.types[img.owner], grid, ffd.rc2b, ffd.rctap2,
-        20, 512, nrows=st.n)
+        20, 768, nrows=st.n)
     b, _ = neighbors.build_neighbors_cells(
         pose, valid, st.types[img.owner], grid, ffd.rc2b, ffd.rctap2,
-        20, 512, nrows=st.n, row_chunk=37)
+        20, 768, nrows=st.n, row_chunk=37)
     for x, y in zip(a, b):
         assert jnp.array_equal(x, y)
 
@@ -109,7 +106,8 @@ def test_builders_identical_under_rowcap(setup, which):
         rc = tc["tor_row"] + 4
     else:
         mk = lambda rc: reax.build_hbond_list(
-            st.pos, st.H, st.types, img, nbrs, bo, amask, ffd, cap=4096,
+            st.pos, st.H, st.types, img, nbrs, bo, amask, ffd,
+            cap=tc["hbf"] + 64,
             kh=max(tc["h_slots"], 2), rowcap=rc)
         rc = tc["hb"] + 4
     l0, l1 = mk(0), mk(rc)

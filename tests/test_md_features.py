@@ -5,21 +5,23 @@ import pytest
 from rxmd_tpu import ffield, system, md
 from rxmd_tpu.config import RunConfig
 
-FF = "/root/reference/ffield"
-CELL = "/root/reference/conf/init.rdx/input.xyz"
+
+@pytest.fixture(scope="module")
+def paths(inputs):
+    return inputs["ffield"], inputs["input.xyz"]
 
 
-def _engine(**kw):
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+def _engine(paths, **kw):
+    ff = ffield.parse_ffield(paths[0])
+    st = system.from_cellfile(paths[1], ff.name_to_type)
     cfg = RunConfig(dt_fs=0.25, pstep=1000, **kw)
     return ff, st, md.Engine(ff, st, cfg)
 
 
 @pytest.mark.slow
-def test_berendsen_like_scaling_mdmode4():
+def test_berendsen_like_scaling_mdmode4(paths):
     """mdmode=4 velocity scaling by vsfact each sstep (ref: main.F90:45-46)."""
-    ff, st, eng = _engine(mdmode=4, vsfact=0.5, sstep=1, ntime_step=5,
+    ff, st, eng = _engine(paths, mdmode=4, vsfact=0.5, sstep=1, ntime_step=5,
                           isQEq=2)
     eng.prepare()
     eng.run(5, log=None)
@@ -30,11 +32,11 @@ def test_berendsen_like_scaling_mdmode4():
 
 
 @pytest.mark.slow
-def test_extended_lagrangian_tracks_cg():
+def test_extended_lagrangian_tracks_cg(paths):
     """isQEq=2 charges stay close to the fully converged CG charges."""
     import jax.numpy as jnp
     from rxmd_tpu import neighbors, qeq, reax, units
-    ff, st, eng = _engine(mdmode=1, isQEq=2, ntime_step=5, sstep=1000)
+    ff, st, eng = _engine(paths, mdmode=1, isQEq=2, ntime_step=5, sstep=1000)
     eng.prepare()
     eng.run(5, log=None)
     s = eng.state
@@ -46,9 +48,9 @@ def test_extended_lagrangian_tracks_cg():
 
 
 @pytest.mark.slow
-def test_cg_optimizer_reduces_energy():
+def test_cg_optimizer_reduces_energy(paths):
     from rxmd_tpu import opt
-    ff, st, eng = _engine(mdmode=10, isQEq=1, ntime_step=1, sstep=1000)
+    ff, st, eng = _engine(paths, mdmode=10, isQEq=1, ntime_step=1, sstep=1000)
     # perturb positions so there is something to minimize
     import jax.numpy as jnp
     rng = np.random.default_rng(3)
@@ -66,8 +68,8 @@ def test_cg_optimizer_reduces_energy():
 
 
 @pytest.mark.slow
-def test_write_frame_formats(tmp_path):
-    ff, st, eng = _engine(mdmode=1, isQEq=1, ntime_step=1, sstep=1000)
+def test_write_frame_formats(paths, tmp_path):
+    ff, st, eng = _engine(paths, mdmode=1, isQEq=1, ntime_step=1, sstep=1000)
     eng.cfg.is_xyz = eng.cfg.is_pdb = eng.cfg.is_bondfile = True
     eng.cfg.is_binary = True
     eng.prepare()
@@ -78,7 +80,7 @@ def test_write_frame_formats(tmp_path):
     assert frames[0]["pos"].shape == (168, 3)
     st2, _ = refbin.read_rxff_bin(base + ".bin")
     assert st2.n == 168
-    # bnd: every RDX atom has >=1 strong bond; C has up to 4
+    # bnd: every atom has >=1 strong bond; C has up to 4
     from rxmd_tpu.tools.bondlifetime import read_bnd
     rows = read_bnd(base + ".bnd")
     assert len(rows) == 168
@@ -87,12 +89,12 @@ def test_write_frame_formats(tmp_path):
 
 
 @pytest.mark.slow
-def test_timers_and_run_profile(tmp_path):
+def test_timers_and_run_profile(paths, tmp_path):
     """Per-phase timing table + run-profile file (ref: it_timer
     module.F90:215-217, FinalizeMD main.F90:128-186, saveRunProfile
     module.F90:271-273)."""
     prof = tmp_path / "profile.dat"
-    ff, st, eng = _engine(mdmode=1, isQEq=2, ntime_step=4,
+    ff, st, eng = _engine(paths, mdmode=1, isQEq=2, ntime_step=4,
                           save_run_profile=True,
                           run_profile_path=str(prof))
     eng.run(4, log=None)
@@ -107,15 +109,15 @@ def test_timers_and_run_profile(tmp_path):
 
 
 @pytest.mark.slow
-def test_dense_direct_matches_ell_path():
+def test_dense_direct_matches_ell_path(paths):
     """The dense minimum-image fast path (reax.qeq_dense_direct +
-    reax.nonbond_dense: no gathers, MXU matvecs) reproduces the gather-
+    reax.nonbond_dense: no gathers, dense matvecs) reproduces the gather-
     based ELL closed-form path: same charges, energies and forces after
     two steps on a box with min(L) > 2*rctap."""
     import jax.numpy as jnp
     import dataclasses
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type, mc=(2, 2, 2),
+    ff = ffield.parse_ffield(paths[0])
+    st = system.from_cellfile(paths[1], ff.name_to_type, mc=(2, 2, 2),
                               dtype=jnp.float32)
 
     def run(dd_max):

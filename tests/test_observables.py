@@ -8,20 +8,23 @@ import pytest
 from rxmd_tpu import ffield, system, neighbors, reax, qeq, units, md
 from rxmd_tpu.config import RunConfig
 
-FF = "/root/reference/ffield"
-CELL = "/root/reference/conf/init.rdx/input.xyz"
-CAPS = {"ang": 2048, "tor": 4096, "hb": 384, "hbf": 4096}
+CAPS = {"ang": 2048, "tor": 4096, "hb": 1024, "hbf": 65536}
 
 
 @pytest.fixture(scope="module")
-def setup():
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+def paths(inputs):
+    return inputs["ffield"], inputs["input.xyz"]
+
+
+@pytest.fixture(scope="module")
+def setup(paths):
+    ff = ffield.parse_ffield(paths[0])
+    st = system.from_cellfile(paths[1], ff.name_to_type)
     ffd = reax.ffdev_from(ff)
     img = neighbors.make_image_table(
         st.n, neighbors.nimg_for_cutoff(np.asarray(st.H), units.RCTAP0))
     nbrs = neighbors.build_neighbors_brute(
-        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 512)
+        st.pos, st.H, st.types, img, ffd.rc2b, ffd.rctap2, 20, 768)
     res = qeq.solve(st.pos, st.q, st.qsfp, st.H, st.types, img, nbrs, ffd,
                     tol=1e-7, nmax=500)
     return ff, st, ffd, img, nbrs, res.q
@@ -35,11 +38,11 @@ def test_hbond_list_matches_grid(setup):
     amask = jnp.ones(st.n, bool)
     bo = reax.bond_order(st.pos, st.H, st.types, img, nbrs, ffd)
     e_grid = float(reax.e_hbond(st.pos, st.H, st.types, img, nbrs, bo,
-                                amask, ffd, cap=384, kh=4))
+                                amask, ffd, cap=1024, kh=4))
     for slack in (1.0, 0.1):
         hl = reax.build_hbond_list(st.pos, st.H, st.types, img, nbrs, bo,
-                                   amask, ffd, cap=4096, kh=4, slack=slack)
-        assert int(hl.cnt) <= 4096
+                                   amask, ffd, cap=65536, kh=4, slack=slack)
+        assert int(hl.cnt) <= 65536
         e_flat = float(reax.e_hbond_list(st.pos, st.H, st.types, img, nbrs,
                                          bo, hl, ffd))
         assert abs(e_flat - e_grid) < 1e-12 * max(1.0, abs(e_grid))
@@ -79,28 +82,29 @@ def test_virial_matches_strain_fd(setup):
         1.0, abs(fd_trace))
 
 
-def test_pressure_column_printed():
+def test_pressure_column_printed(paths):
     """PRINTE line has the pressure column (ref: main.F90:252-263) and the
-    accumulated pressure is physically sized.  NOTE: the reference README
-    trace prints ss=0.00 for this deck, which is inconsistent with the
-    reference's own astr accumulation (pot.F90:65-72 would give ~0.5 GPa —
-    FD-verified); we follow the code, not the stale trace."""
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+    accumulated pressure is physically sized.  (The reference README trace
+    prints ss=0.00 for its RDX deck, inconsistent with the reference's own
+    astr accumulation, pot.F90:65-72; we follow the code, not the trace.)"""
+    ff = ffield.parse_ffield(paths[0])
+    st = system.from_cellfile(paths[1], ff.name_to_type)
     cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=10, pstep=10,
                     sstep=1000, isQEq=1, QEq_tol=1e-7)
     eng = md.Engine(ff, st, cfg)
     eng.prepare()
     eng.run(10, log=None)
     p = eng.pressure_gpa(reset=False)
-    assert 0.1 < p < 2.0       # FD-verified ~0.5-1.1 GPa for this deck
+    # a molecular crystal built at 1.8 g/cm^3 from rigid molecules sits
+    # within a few GPa of zero pressure, never exactly at it
+    assert 0.05 < abs(p) < 5.0
     line = eng.printe_line()
     assert len(line.split()) == 15   # MDstep: step TE PE KE 6x comps tt ss qq nqeq
 
 
-def test_remove_angular_momentum():
-    ff = ffield.parse_ffield(FF)
-    st = system.from_cellfile(CELL, ff.name_to_type)
+def test_remove_angular_momentum(paths):
+    ff = ffield.parse_ffield(paths[0])
+    st = system.from_cellfile(paths[1], ff.name_to_type)
     cfg = RunConfig(mdmode=1, dt_fs=0.25, ntime_step=1, pstep=100,
                     sstep=1000, isQEq=0)
     eng = md.Engine(ff, st, cfg)

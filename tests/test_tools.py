@@ -1,8 +1,15 @@
 """Analysis tools: g(r)/S(q)/angles, bond lifetime, geninit, LG parsing."""
 import numpy as np
+import pytest
 
 from rxmd_tpu import ffield, system
 from rxmd_tpu.tools import stat
+
+
+@pytest.fixture(scope="module")
+def crystal(inputs):
+    ff = ffield.parse_ffield(inputs["ffield"])
+    return ff, system.from_cellfile(inputs["input.xyz"], ff.name_to_type)
 
 
 def test_gr_ideal_gas_like():
@@ -18,11 +25,10 @@ def test_gr_ideal_gas_like():
     assert abs(mid.mean() - 1.0) < 0.1
 
 
-def test_gr_crystal_peaks():
-    """RDX crystal g(r) has a C-H bond peak near 1.1 A and N-O near 1.2."""
-    ff = ffield.parse_ffield("/root/reference/ffield")
-    st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                              ff.name_to_type)
+def test_gr_crystal_peaks(crystal):
+    """C3H6N6O6 crystal g(r) has a C-H bond peak near 1.1 A and N-O near
+    1.2."""
+    ff, st = crystal
     box = np.array([13.18, 11.57, 10.71])
     pa = stat.PairAnalysis(ff.atom_names[:4], rcut=5.0, dr=0.05)
     pa.add_frame(np.asarray(st.pos), np.asarray(st.types), box)
@@ -34,25 +40,22 @@ def test_gr_crystal_peaks():
     assert 1.0 < r[np.argmax(no)] < 1.5
 
 
-def test_bond_angle_distribution():
-    ff = ffield.parse_ffield("/root/reference/ffield")
-    st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                              ff.name_to_type)
+def test_bond_angle_distribution(crystal):
+    ff, st = crystal
     box = np.array([13.18, 11.57, 10.71])
     rcuts = {(a, b): 1.8 for a in range(4) for b in range(4)}
     hists = stat.bond_angle_distribution(np.asarray(st.pos),
                                          np.asarray(st.types), box, rcuts)
-    # H-C-H angles around 109 deg exist in RDX
+    # H-C-H angles around 109 deg exist in the CH2 groups
     key = (1, 0, 1)
     assert key in hists
     peak = np.argmax(hists[key]) * (180 / len(hists[key]))
     assert 90 < peak < 130
 
 
-def test_lg_ffield_parses_and_tables():
+def test_lg_ffield_parses_and_tables(inputs):
     """ReaxFF-lg variant: dispersion+core tables (ref: init.F90:496-514)."""
-    ff = ffield.parse_ffield("/root/reference/conf/init.rdx.lg/ffield",
-                             lg=True)
+    ff = ffield.parse_ffield(inputs["ffield.lg"], lg=True)
     assert ff.is_lg and ff.C_lg is not None
     assert (ff.C_lg.diagonal()[2:4] > 100).all()   # O,N dispersion coeffs
     tbl = ffield.build_tables(ff)
@@ -67,11 +70,11 @@ def test_lg_ffield_parses_and_tables():
     assert tbl["evdw"][b, k] < tbl0["evdw"][b, k]
 
 
-def test_geninit_roundtrip(tmp_path):
+def test_geninit_roundtrip(inputs, tmp_path):
     from rxmd_tpu.tools import geninit
     out = str(tmp_path)
-    geninit.main(["-i", "/root/reference/conf/init.rdx/input.xyz",
-                  "-f", "/root/reference/ffield", "-o", out,
+    geninit.main(["-i", inputs["input.xyz"],
+                  "-f", inputs["ffield"], "-o", out,
                   "-mc", "2", "1", "1"])
     from rxmd_tpu.io import refbin
     st, meta = refbin.read_rxff_bin(out + "/rxff.bin")
@@ -79,13 +82,11 @@ def test_geninit_roundtrip(tmp_path):
     assert abs(meta["cell"][0] - 2 * 13.18) < 1e-6
 
 
-def test_plot_tool(tmp_path):
+def test_plot_tool(crystal, tmp_path):
     """Plot + csv tooling (ref: util/stat/plot.py, util/script/csv.py):
     one command turns stat output into the standard figures."""
     from rxmd_tpu.tools import plot
-    ff = ffield.parse_ffield("/root/reference/ffield")
-    st = system.from_cellfile("/root/reference/conf/init.rdx/input.xyz",
-                              ff.name_to_type)
+    ff, st = crystal
     box = np.array([13.18, 11.57, 10.71])
     pa = stat.PairAnalysis(ff.atom_names[:4], rcut=5.0, dr=0.1)
     pa.add_frame(np.asarray(st.pos), np.asarray(st.types), box)
